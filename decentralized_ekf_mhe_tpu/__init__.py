@@ -1,12 +1,12 @@
-"""decentralized_ekf_mhe_tpu — TPU-native decentralized state estimation for legged robots.
+"""decentralized_ekf_mhe_tpu — batched decentralized state estimation for legged robots.
 
-A from-scratch JAX/XLA/Pallas re-design of the capabilities of
+A from-scratch JAX/XLA re-design of the capabilities of
 well-robotics/Decentralized_EKF_MHE (arXiv:2405.20567): a quaternion EKF for
 orientation (IMU + vision fusion) decoupled from a constrained Moving Horizon
 Estimator over time-varying *linear* velocity/position dynamics.
 
 Where the reference is a single-robot, CPU real-time ROS2 workspace
-(C++ / Eigen / OSQP), this package is a batched, fused, multi-host TPU engine:
+(C++ / Eigen / OSQP), this package is a batched, fused, multi-device GPU engine:
 
 - the orientation EKF (reference: src/orien_est/src/orien_ekf.cpp) is a fused
   `lax.scan` kernel, vmappable over thousands of instances;
@@ -21,7 +21,7 @@ Where the reference is a single-robot, CPU real-time ROS2 workspace
 - FROST/Mathematica leg kinematics codegen (src/go1_example/src/Expressions/*)
   becomes vectorized closed-form JAX kinematics;
 - ROS2 DDS pub/sub becomes in-graph array handoff inside one jitted step, with
-  `jax.sharding` collectives for cross-instance reductions at pod scale.
+  `jax.sharding` collectives for cross-instance reductions across devices.
 """
 
 __version__ = "0.1.0"

@@ -18,6 +18,7 @@ All defaults equal the reference's declare_parameter defaults.
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field
 from typing import Any, Sequence
 
@@ -36,8 +37,8 @@ def _f4(w, x, y, z):
 class OSQPParams:
     """ADMM solver settings with OSQP semantics (EstSub.cpp:182-207).
 
-    ``max_iter`` bounds the fixed iteration budget (the TPU analog of both
-    maxQPIter and the wall-clock timeLimit of parameters_go1.yaml:45,50).
+    ``max_iter`` bounds the fixed iteration budget (the batched analog of
+    both maxQPIter and the wall-clock timeLimit of parameters_go1.yaml:45,50).
     """
 
     rho: float = 0.1
@@ -206,18 +207,110 @@ _EKF_KEYMAP = {
 }
 
 
+_INT_RE = re.compile(r"[-+]?[0-9]+$")
+_FLOAT_RE = re.compile(r"[-+]?([0-9]+\.?[0-9]*|\.[0-9]+)([eE][-+]?[0-9]+)?$")
+_BOOLS = {"true": True, "yes": True, "on": True,
+          "false": False, "no": False, "off": False}
+
+
+def _strip_comment(line: str) -> str:
+    """Drop a ``#`` comment that starts the line or follows whitespace,
+    outside quotes."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1].isspace()):
+            return line[:i]
+    return line
+
+
+def _scalar(tok: str, where: str) -> Any:
+    t = tok.strip()
+    if len(t) >= 2 and t[0] == t[-1] and t[0] in "'\"":
+        return t[1:-1]
+    if t[:1] in ("'", '"', "{", "&", "*", "!", "|", ">"):
+        raise ValueError(f"{where}: unsupported YAML value {tok!r}")
+    if t in ("", "~") or t.lower() == "null":
+        return None
+    if t.lower() in _BOOLS:
+        return _BOOLS[t.lower()]
+    if _INT_RE.match(t):
+        return int(t)
+    if _FLOAT_RE.match(t):
+        return float(t)
+    if t.lower() in (".inf", "+.inf", "-.inf", ".nan"):
+        return float(t.replace(".", ""))
+    return t
+
+
+def _value(tok: str, where: str) -> Any:
+    t = tok.strip()
+    if t.startswith("["):
+        if not t.endswith("]"):
+            raise ValueError(f"{where}: unterminated inline list {tok!r}")
+        inner = t[1:-1].strip()
+        return [_scalar(v, where) for v in inner.split(",")] if inner else []
+    return _scalar(t, where)
+
+
+def parse_yaml(text: str) -> dict:
+    """Parse the YAML subset of the reference parameter files: nested block
+    mappings, inline lists of scalars, numbers (``1e-6`` is a float, as
+    rclcpp reads it), bools, null and quoted strings, ``#`` comments.
+    Anything else (block sequences, anchors, flow mappings, multi-line
+    strings) raises ValueError rather than being misread."""
+    root: dict = {}
+    stack = [[0, root]]          # [indent of the mapping's keys, mapping]
+    open_key = None              # (mapping, key) of a ``key:`` line with no value
+    for lineno, raw in enumerate(text.splitlines(), 1):
+        where = f"line {lineno}"
+        line = _strip_comment(raw).rstrip()
+        body = line.lstrip(" ")
+        if not body or body in ("---", "..."):
+            continue
+        if body[0] in "\t-?":
+            raise ValueError(f"{where}: unsupported YAML line {raw!r}")
+        indent = len(line) - len(body)
+        if open_key is not None:
+            if indent > stack[-2][0]:
+                stack[-1][0] = indent          # first key of the new mapping
+            else:
+                stack.pop()
+                open_key[0][open_key[1]] = None
+            open_key = None
+        while len(stack) > 1 and indent < stack[-1][0]:
+            stack.pop()
+        if indent != stack[-1][0]:
+            raise ValueError(f"{where}: bad indentation {raw!r}")
+        key, sep, rest = body.partition(":")
+        if not sep or (rest and not rest[0].isspace()):
+            raise ValueError(f"{where}: expected 'key: value', got {raw!r}")
+        key = _scalar(key, where)
+        mapping = stack[-1][1]
+        if rest.strip():
+            mapping[key] = _value(rest, where)
+        else:
+            mapping[key] = {}
+            stack.append([None, mapping[key]])
+            open_key = (mapping, key)
+    if open_key is not None:
+        open_key[0][open_key[1]] = None
+    return root
+
+
 def _ros_params(doc: dict, node: str) -> dict:
     sec = doc.get(node, {})
     return sec.get("ros__parameters", sec) if isinstance(sec, dict) else {}
 
 
 def _coerce(obj: Any, attr: str, value: Any) -> Any:
-    """Coerce a YAML value to the declared field type.
-
-    PyYAML implements YAML 1.1, where ``1e-6`` (no dot, unsigned exponent) is a
-    *string*; rclcpp's YAML front-end parses it as a double. Coerce by the
-    dataclass default's type so reference YAMLs load with reference semantics.
-    """
+    """Coerce a YAML value to the declared field type, so reference YAMLs
+    load with rclcpp's semantics: a number handed to a float parameter is a
+    float, and a string handed to a bool or number parameter is parsed."""
     cur = getattr(obj, attr)
     if isinstance(cur, bool):
         if isinstance(value, str):
@@ -242,10 +335,8 @@ def _coerce(obj: Any, attr: str, value: Any) -> Any:
 
 def load_yaml_params(path: str) -> tuple[EstimatorParams, EKFParams]:
     """Load (EstimatorParams, EKFParams) from a reference-layout YAML file."""
-    import yaml
-
     with open(path) as f:
-        doc = yaml.safe_load(f)
+        doc = parse_yaml(f.read())
 
     est = EstimatorParams()
     est_doc = _ros_params(doc, "est_sub")

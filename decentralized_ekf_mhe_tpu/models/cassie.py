@@ -3,7 +3,7 @@
 The reference demonstrates Cassie in the paper (README.md:5) but ships no
 Cassie kinematics in-repo — deployments supply `p_imu_2_foot`/`J_imu_2_foot`
 through the robotSub seam (go1Sub.hpp:32-50 pattern). This module provides the
-same seam TPU-side: a 2-leg RobotModel with either (a) passthrough channels
+same seam engine-side: a 2-leg RobotModel with either (a) passthrough channels
 (the deployment computes FK externally, e.g. from its own codegen) or (b) a
 built-in 3-DoF serial-chain approximation (hip-roll / hip-pitch / knee with
 shank+tarsus lumped) for synthetic logs and tests.

@@ -339,11 +339,10 @@ def solve_box_tridiag_lanes(D, U, r, lb, ub, settings: ADMMSettings,
 
     # ONE flat iteration scan with the factorization CARRIED and recomputed
     # under a scalar lax.cond only at ρ-epoch starts (it = kE+1). A nested
-    # scan-of-epochs(inner scan + factor) structure was tried first and cost
-    # >10 min of TPU compile inside the tick scan (the backend's loop passes
-    # scale badly with scan nesting — same pathology as the round-3
-    # while_loop note in this file's tridiag twin); the flat scan compiles
-    # with the rest of the tick. Iterate sequence is IDENTICAL (ρ only
+    # scan-of-epochs(inner scan + factor) structure compiles far slower
+    # inside the tick scan (XLA's loop passes scale badly with scan nesting
+    # — see the while_loop note in this file's tridiag twin); the flat scan
+    # compiles with the rest of the tick. Iterate sequence is IDENTICAL (ρ only
     # changes at epoch ends, so the carried factorization is exact).
     E = max(1, int(settings.rho_update_every))
     fac0 = factor(rho0)
@@ -512,9 +511,9 @@ def solve_box_tridiag(D, U, r, lb, ub, settings: ADMMSettings,
         return (x, z, y, rho, done, iters)
 
     # NOTE: a lax.while_loop early exit over epochs (stop when every batch
-    # instance has converged) was tried and reverted: identical throughput at
-    # the bench config but a 27x TPU compile-time cost (while_loop inside the
-    # tick scan defeats the backend's loop pipelining). The per-instance
+    # instance has converged) was tried and reverted: no throughput gain at
+    # the bench config but a far longer compile (a while_loop inside the
+    # tick scan defeats XLA's loop pipelining). The per-instance
     # masked freeze plus the fixed epoch count is the right jit-safe shape.
     E = max(1, int(settings.rho_update_every))
     n_full, rem = divmod(int(settings.iters), E)

@@ -43,7 +43,7 @@ def add_way_point(c: BezierCarry, p: jnp.ndarray, t_end,
     """Push (p, t); keep the last 4 (Bezier_simple.cpp:12-27).
 
     Mask-select writes (no scatter) so the op broadcasts over batch axes and
-    lowers inside Pallas/vmap contexts alike. With batched times/count the
+    lowers inside scan/vmap contexts alike. With batched times/count the
     push is per instance; ``mask`` (broadcastable to count's shape) keeps
     masked-out instances' carries untouched (their VO frame didn't arrive).
     """

@@ -1,4 +1,4 @@
-"""Quaternion EKF for base orientation — fused TPU kernel.
+"""Quaternion EKF for base orientation — fused JAX kernel.
 
 Re-designs the reference's 500 Hz orien_est node (src/orien_est/src/orien_ekf.cpp)
 as a pure-functional JAX kernel:

@@ -133,7 +133,7 @@ def run_mhe(
     every kernel broadcasts over the trailing instance axis, so a batched
     time-leading layout replays the whole fleet in one scan (see
     parallel.batch.make_fused_batched_runner). Pass ``consts`` to override
-    solver options (e.g. the Pallas window solve or state constraints).
+    solver options (e.g. state constraints).
 
     Returns (x_seq (T,[B,]s), v_b_seq (T,[B,]3)). x_seq[0] is the
     prior+measurement solve at tick 0 (the reference does not publish an
@@ -189,8 +189,7 @@ def run_mhe_lanes(
     consts=None,
 ):
     """Fleet MHE replay in instance-on-lanes layout (ops/mhe_lanes.py) — the
-    fast path of make_fused_batched_runner: ~6x lighter HBM traffic per tick
-    than the standard layout at the Go1 config.
+    lanes twin of run_mhe on a (T,B,...) fleet.
 
     ``data`` fields are lanes-layout time-leading: accel_b (T,3,B), R_sb
     (T,3,3,B), p_foot (T,L,3,B), ... (parallel.batch.tickdata_to_lanes
@@ -365,7 +364,7 @@ def run_pipeline_lanes(
     sequence; stage 2 is the lanes MHE replay (run_mhe_lanes) consuming it.
     Staging also lets the VO R_pre lookup (the rotation stack the reference
     indexes at DecentralEst.cpp:915) gather the *exact* per-tick orientation
-    from the full sequence instead of a bounded ring, and compiles ~30x
+    from the full sequence instead of a bounded ring, and compiles much
     faster than a single fused scan body (XLA's loop passes scale badly in
     the combined EKF+MHE carry). ``data.R_sb`` is IGNORED — orientation
     comes from the EKF.

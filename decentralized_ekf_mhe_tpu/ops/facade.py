@@ -20,19 +20,19 @@ import numpy as np
 
 from decentralized_ekf_mhe_tpu.config import EstimatorParams
 from decentralized_ekf_mhe_tpu.ops import assembly, kf, mhe
+from decentralized_ekf_mhe_tpu.utils.precision import full_precision
 
 
 class DecentralizedEstimator:
     """Tick-at-a-time decentralized estimator (MHE or KF per est_type)."""
 
     def __init__(self, params: EstimatorParams, dtype=jnp.float32,
-                 x_lb=None, x_ub=None, use_pallas: bool = False,
+                 x_lb=None, x_ub=None,
                  lever_arm=kf.DEFAULT_LEVER_ARM, history_ticks: int = 256):
         self.params = params
         self.dtype = dtype
         self.est_type = params.est_type
-        self._c = mhe.make_consts(params, dtype, x_lb=x_lb, x_ub=x_ub,
-                                  use_pallas=use_pallas)
+        self._c = mhe.make_consts(params, dtype, x_lb=x_lb, x_ub=x_ub)
         self._nc = assembly.make_noise_consts(params, dtype)
         self._A_meas = assembly.a_meas(params, dtype)
         self._lever = jnp.asarray(lever_arm, dtype)
@@ -51,6 +51,7 @@ class DecentralizedEstimator:
         self._block_jit = {}          # K -> jitted K-tick scan
 
     # -- DecentralizedEstimation::initialize (DecentralEst.cpp:9-150) ------
+    @full_precision
     def initialize(self, R_sb, accel_b, omega_b, p_foot, J_foot, dq, contact):
         a = lambda v: jnp.asarray(v, self.dtype)
         args = tuple(map(a, (R_sb, accel_b, omega_b, p_foot, J_foot, dq, contact)))
@@ -74,6 +75,7 @@ class DecentralizedEstimator:
         return self.x
 
     # -- DecentralizedEstimation::update (DecentralEst.cpp:152-198) --------
+    @full_precision
     def update(self, R_sb, accel_b, omega_b, p_foot, J_foot, dq, contact,
                vo_active=False, vo_dp=None, vo_tick_pre=0, vo_tick_now=0):
         if self._state is None:
@@ -126,6 +128,7 @@ class DecentralizedEstimator:
         return self.x
 
     # -- block update: K ticks in ONE device dispatch ----------------------
+    @full_precision
     def update_block(self, R_sb, accel_b, omega_b, p_foot, J_foot, dq,
                      contact, vo_active=None, vo_dp=None, vo_tick_pre=None,
                      vo_tick_now=None):
@@ -231,15 +234,14 @@ class PipelineEstimator:
 
     def __init__(self, params: EstimatorParams, ekf_params,
                  dtype=jnp.float32, x_lb=None, x_ub=None,
-                 use_pallas: bool = False, ekf_ring_len: int = 16,
+                 ekf_ring_len: int = 16,
                  lever_arm=kf.DEFAULT_LEVER_ARM, history_ticks: int = 256):
         from decentralized_ekf_mhe_tpu.ops import ekf_lanes
 
         self.params = params
         self.ekf_params = ekf_params
         self.dtype = dtype
-        self._c = mhe.make_consts(params, dtype, x_lb=x_lb, x_ub=x_ub,
-                                  use_pallas=use_pallas)
+        self._c = mhe.make_consts(params, dtype, x_lb=x_lb, x_ub=x_ub)
         self._ec = ekf_lanes.make_consts(ekf_params, dtype)
         self._ekf_ring_len = ekf_ring_len
         self._H = history_ticks

@@ -1,18 +1,14 @@
 """Instance-on-lanes small-matrix algebra — the fleet-layout math kernel.
 
-TPU tiles map an array's last two dims onto (sublane=8, lane=128) registers,
-so the estimator's batched small matrices in standard (B, s, s) layout pad
-s∈{3..21} up to (8,128) tiles — ~25x HBM/VPU waste at s=9, the measured
-bottleneck of the fused MHE tick (every window tensor is streamed every
-tick). These helpers keep the instance batch B on the minor (lane) axis
-instead: matrices are (..., s, s, B), vectors (..., s, B), so every scalar
-matrix entry is a dense (B,)-lane vector and the only padding is s on
-sublanes (9->16, 1.8x).
+These helpers keep the instance batch B on the minor (lane) axis: matrices
+are (..., s, s, B), vectors (..., s, B), so every scalar matrix entry is a
+dense, contiguous (B,) vector and each small-matrix product is an
+elementwise multiply-add over whole fleet rows, which XLA fuses. The
+standard (B, s, s) layout instead puts the tiny s dims minor-most.
 
 All helpers accept arbitrary leading window/batch axes via einsum ellipsis;
 `b` is the single trailing instance axis. The unrolled Gauss-Jordan inverse
-mirrors ops/smallmat.py (same pivot-free SPD assumption) and the Pallas
-kernel's in-VMEM variant (pallas/tridiag_kernel.py).
+mirrors ops/smallmat.py (same pivot-free SPD assumption).
 """
 
 from __future__ import annotations
@@ -206,9 +202,8 @@ def thomas_solve_factored(fac, r):
 
 
 def thomas_solve(D, U, r):
-    """Block-Thomas sweep on a lanes-layout SPD block-tridiagonal system —
-    the XLA twin of the Pallas kernel (pallas/tridiag_kernel.py), unrolled
-    over the static window length.
+    """Block-Thomas sweep on a lanes-layout SPD block-tridiagonal system,
+    unrolled over the static window length.
 
     Args:
       D: (N, s, s, B) diagonal blocks (warmup-masked by the caller).

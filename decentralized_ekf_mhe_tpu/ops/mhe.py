@@ -1,6 +1,6 @@
 """Moving Horizon Estimator — fixed-shape window engine + exact QP solve.
 
-TPU-native re-design of the reference MHE stack (MheSrb.cpp + the formulation
+Re-design of the reference MHE stack (MheSrb.cpp + the formulation
 side of DecentralEst.cpp): the string-keyed incremental QP registries
 (MheSrb.hpp:128-136), conservativeResize growth (MheSrb.cpp:351-447), OSQP
 solve (:340-349) and Schur marginalization (:475-713) become:
@@ -55,9 +55,6 @@ class MHEConsts(NamedTuple):
     x_lb: object = None       # (s,) or None
     x_ub: object = None       # (s,) or None
     admm: object = None       # admm.ADMMSettings or None
-    # use the Pallas instance-on-lanes kernel for the window solve (TPU,
-    # single leading batch axis, unconstrained): ~14x the XLA path at B=1024
-    use_pallas: bool = False
 
 
 class MHEState(NamedTuple):
@@ -91,8 +88,7 @@ class MHEState(NamedTuple):
 
 
 def make_consts(p: EstimatorParams, dtype=jnp.float32,
-                x_lb=None, x_ub=None, admm_iters=None,
-                use_pallas: bool = False) -> MHEConsts:
+                x_lb=None, x_ub=None, admm_iters=None) -> MHEConsts:
     """Build static MHE constants. Passing x_lb/x_ub ((s,) shared or (s,B)
     PER-LANE arrays; ±inf for unconstrained dims) switches solve_window to
     the ADMM path with OSQP settings from ``p.osqp`` and a fixed iteration
@@ -124,10 +120,6 @@ def make_consts(p: EstimatorParams, dtype=jnp.float32,
         ) if constrained else None,
         admm=admm_lib.ADMMSettings.from_osqp(p.osqp, admm_iters)
         if constrained else None,
-        # constrained + use_pallas routes the LANES window solve through the
-        # in-VMEM ADMM kernel (pallas/admm_kernel.py); the standard-layout
-        # constrained path stays on the XLA solver
-        use_pallas=use_pallas,
     )
 
 
@@ -347,11 +339,7 @@ def solve_window(c: MHEConsts, st: MHEState) -> jnp.ndarray:
     Ul = jnp.moveaxis(U, -3, 0)[:-1]
     rl = jnp.moveaxis(r, -2, 0)
     vl = jnp.moveaxis(jnp.broadcast_to(valid, r.shape[:-1]), -1, 0)
-    if c.use_pallas and c.x_lb is None and rl.ndim == 3:
-        from decentralized_ekf_mhe_tpu.pallas import tridiag_kernel as tk
-
-        x = tk.solve_batched(Dl, Ul, rl, valid=vl)
-    elif c.x_lb is None:
+    if c.x_lb is None:
         x = tridiag.solve(Dl, Ul, rl, valid=vl)
     else:
         from decentralized_ekf_mhe_tpu.ops import admm as admm_lib

@@ -3,15 +3,12 @@
 Identical semantics to ops/mhe.py (same reference anchors: MheSrb.cpp window
 registries/marginalization, DecentralEst.cpp formulation; equivalence is
 asserted at float64 in tests/test_mhe_lanes.py) but every window tensor keeps
-the instance batch B on the trailing (lane) axis, so the per-tick HBM traffic
-is ~14x smaller than the standard layout at s=9 (see ops/lanes.py). The
-window solve feeds the Pallas kernel directly — no layout transposes anywhere
-on the tick path. This is what the bench/production fleet runner
-(parallel/batch.make_lanes_fleet_runner) scans.
+the instance batch B on the trailing (lane) axis (see ops/lanes.py), with no
+layout transposes anywhere on the tick path. This is what the fleet runners
+(parallel/batch.make_pipeline_fleet_runner, make_lanes_fleet_runner) scan.
 
-Restrictions vs ops/mhe.py: exactly one instance axis, unconstrained QP only
-(state box constraints route through the standard path), shared VO schedule
-across the fleet (per-instance VO uses the vmapped runner).
+Restrictions vs ops/mhe.py: exactly one instance axis. The VO schedule is
+shared across the fleet (step) or per instance (step_per_instance_vo).
 """
 
 from __future__ import annotations
@@ -308,28 +305,17 @@ def _masked_system(c: MHEConsts, st: MHEStateL):
 def solve_window(c: MHEConsts, st: MHEStateL) -> jnp.ndarray:
     """Solve the current window; returns (N, s, B) (zeros on dead slots).
 
-    Unconstrained configs solve exactly (Pallas kernel or XLA Thomas sweep);
-    with state box constraints (c.x_lb/x_ub) the lanes OSQP-semantics ADMM
-    runs, warm-started from st.z_adm/y_adm."""
+    Unconstrained configs solve exactly (Thomas sweep); with state box
+    constraints (c.x_lb/x_ub) the lanes OSQP-semantics ADMM runs,
+    warm-started from st.z_adm/y_adm."""
     D, U, r = _masked_system(c, st)
     if c.x_lb is not None:
         return _solve_constrained(c, D, U, r, st.z_adm, st.y_adm).x
-    if c.use_pallas:
-        from decentralized_ekf_mhe_tpu.pallas import tridiag_kernel as tk
-
-        return tk.solve_lanes(D, U, r)
     return lanes.thomas_solve(D, U, r)
 
 
 def _solve_constrained(c: MHEConsts, D, U, r, z0, y0):
-    """Dispatch the lanes box-ADMM: in-VMEM Pallas kernel when c.use_pallas
-    (whole iteration loop fused, seconds of Mosaic compile vs minutes of XLA
-    scan compile), XLA scan solver otherwise. Identical semantics."""
-    if c.use_pallas:
-        from decentralized_ekf_mhe_tpu.pallas import admm_kernel as ak
-
-        return ak.solve_box_lanes(D, U, r, c.x_lb, c.x_ub, c.admm,
-                                  z0=z0, y0=y0)
+    """The lanes box-ADMM (OSQP semantics, warm-started from z0/y0)."""
     from decentralized_ekf_mhe_tpu.ops import admm as admm_lib
 
     return admm_lib.solve_box_tridiag_lanes(

@@ -6,7 +6,7 @@ addConstraints(+Dependency) / updateConstraintBound / updateCostGain /
 formulate / solve / reset. The structured MHE path in ops/mhe.py replaces it
 with static window tensors for the hot loop; this module provides the same
 *general* builder for ad-hoc problems (custom costs, extra constraints,
-prototyping new robots) on top of the TPU solvers:
+prototyping new robots) on top of the engine's solvers:
 
 - equality-only problems solve exactly via the KKT system;
 - box/inequality problems solve via OSQP-semantics ADMM (ops/admm.py) with

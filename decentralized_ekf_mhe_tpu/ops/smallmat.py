@@ -1,11 +1,11 @@
-"""Small-matrix linear algebra tuned for TPU: unrolled, batch-vectorized.
+"""Small-matrix linear algebra: unrolled, batch-vectorized.
 
-XLA's LAPACK-style `cholesky`/`triangular_solve`/`lu` HLOs cost ~1 ms per
-batched call on TPU for the (B, s, s) matrices this framework uses
-(s ∈ {3,...,21}) — 30× slower than unrolled Gauss-Jordan elimination, which
-lowers to plain VPU vector ops (measured on v5e; see bench notes in the
-repo history). All estimator matrices needing inversion are SPD (covariance
-/ information matrices), so pivot-free elimination is numerically safe.
+The (B, s, s) matrices this framework inverts (s ∈ {3,...,21}) are far too
+small for XLA's LAPACK-style `cholesky`/`triangular_solve`/`lu` HLOs, which
+launch per call and iterate; unrolled Gauss-Jordan elimination is plain
+elementwise arithmetic that XLA fuses into the surrounding ops. All
+estimator matrices needing inversion are SPD (covariance / information
+matrices), so pivot-free elimination is numerically safe.
 
 These routines broadcast over arbitrary leading batch axes and unroll over
 the static trailing (s, s) dims.

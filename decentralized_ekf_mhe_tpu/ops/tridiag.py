@@ -48,9 +48,8 @@ def solve(D: jnp.ndarray, U: jnp.ndarray, r: jnp.ndarray, valid=None) -> jnp.nda
         vU = (valid[:-1] & valid[1:])[..., None, None].astype(U.dtype)
         U = U * vU
 
-    # Factorization uses unrolled Gauss-Jordan inverses (ops/smallmat.py):
-    # ~30× faster than XLA's cholesky/triangular_solve HLOs for these sizes
-    # on TPU, and the Schur complements S_j are SPD so pivoting is safe.
+    # Factorization uses unrolled Gauss-Jordan inverses (ops/smallmat.py);
+    # the Schur complements S_j are SPD so pivoting is unnecessary.
     # forward sweep: S_j = D_j − U_{j-1}ᵀ S_{j-1}⁻¹ U_{j-1},
     #                y_j = r_j − U_{j-1}ᵀ S_{j-1}⁻¹ y_{j-1}
     from decentralized_ekf_mhe_tpu.ops import smallmat

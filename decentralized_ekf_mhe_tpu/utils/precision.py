@@ -1,12 +1,13 @@
-"""Matmul-precision control for TPU correctness.
+"""Matmul-precision control.
 
-TPU matmuls default to bfloat16 inputs, whose 8-bit mantissa destroys the
-SPD structure of the estimator's information matrices (observed: NaN
-Cholesky/elimination pivots in the window solve). Every public kernel entry
-point is wrapped in ``full_precision`` so the traced computation always uses
-full float32 multiply accumulation regardless of global config. These are
-(B, s≤21, s≤21) contractions — VPU-bound, so the highest-precision path
-costs nothing measurable.
+On NVIDIA cards XLA may run a float32 matrix product in TF32, which keeps
+about ten mantissa bits. That destroys the SPD structure of the estimator's
+information matrices (NaN or wildly wrong elimination pivots in the window
+solve) and breaks the 1e-3 velocity-RMSE gate against the float64 oracle.
+Every public kernel entry point is wrapped in ``full_precision`` so the
+traced computation always multiplies and accumulates in full float32,
+regardless of global config. These are (B, s≤21, s≤21) contractions, far
+too small for the tensor cores to pay.
 """
 
 from __future__ import annotations

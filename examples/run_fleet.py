@@ -7,14 +7,14 @@ statistics, and optionally:
 
 - shards the fleet over a device mesh (``--mesh``; on CPU set
   XLA_FLAGS=--xla_force_host_platform_device_count=8 to simulate 8 devices),
-  reducing statistics with psum collectives over ICI;
+  reducing statistics with psum collectives;
 - runs a covariance tuning sweep (``--sweep``) over process-noise scalings,
   reporting the argmin config — the reference's hand-tuning loop
   (parameters_go1.yaml noise groups) as one vmapped program;
 - runs a CONSTRAINT-BOUND tuning sweep (``--bound-sweep``): every fleet lane
   solves the box-constrained MHE under its OWN velocity bound ((s,B)
-  per-lane bounds through the constrained mega-kernel, one compiled
-  program), reporting RMSE-vs-bound — the per-run YAML bound construction
+  per-lane bounds through the lanes ADMM, one compiled program), reporting
+  RMSE-vs-bound — the per-run YAML bound construction
   of DecentralEst.cpp:222-348 lifted to a Monte-Carlo axis.
 
 Usage:
@@ -28,12 +28,14 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--yaml", default="/root/reference/src/go1_example/config/parameters_go1.yaml")
+    ap.add_argument("--yaml",
+                    default=os.path.join(ROOT, "configs", "parameters_go1.yaml"))
     ap.add_argument("--instances", type=int, default=256)
     ap.add_argument("--ticks", type=int, default=400)
     ap.add_argument("--seed", type=int, default=0)
@@ -47,10 +49,10 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args(argv)
 
-    import jax
+    from decentralized_ekf_mhe_tpu.utils.runtime import init_backend
 
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
+    init_backend(cpu=args.cpu)
+    import jax
     import jax.numpy as jnp
     import numpy as np
 
@@ -63,7 +65,6 @@ def main(argv=None):
     est_params, ekf_params = dem.load_yaml_params(args.yaml)
     dtype = jnp.float32
     T, B = args.ticks, args.instances
-    on_tpu = jax.devices()[0].platform not in ("cpu",)
 
     log = synth.generate(synth.SynthConfig(T=T, rate=est_params.rate,
                                            seed=args.seed))
@@ -89,7 +90,7 @@ def main(argv=None):
             accel=jax.device_put(
                 eb.accel, NamedSharding(mesh, P(None, None, None, axes))))
         runner = batch_lib.sharded_pipeline_runner(
-            est_params, ekf_params, mesh, dtype, use_pallas=on_tpu)
+            est_params, ekf_params, mesh, dtype)
         t0 = time.time()
         x, rmse, mean_r, max_r = runner(data_b, eb, vo, gt_v)
         jax.block_until_ready(x)
@@ -100,7 +101,7 @@ def main(argv=None):
               f"max={float(max_r):.4f} m/s over {B} instances")
     else:
         runner = jax.jit(batch_lib.make_pipeline_fleet_runner(
-            est_params, ekf_params, dtype, use_pallas=on_tpu))
+            est_params, ekf_params, dtype))
         t0 = time.time()
         x, v, q = runner(data_b, eb, vo)
         jax.block_until_ready(x)
@@ -139,9 +140,9 @@ def main(argv=None):
         ub_B[3:6] = bnds
         p_c = dataclasses_replace_params(est_params)
         c_sw = mhe.make_consts(p_c, dtype, x_lb=lb_B, x_ub=ub_B,
-                               admm_iters=20, use_pallas=on_tpu)
-        sw = jax.jit(batch_lib.make_lanes_fleet_runner(
-            p_c, dtype, use_megakernel=on_tpu, consts=c_sw))
+                               admm_iters=20)
+        sw = jax.jit(batch_lib.make_lanes_fleet_runner(p_c, dtype,
+                                                       consts=c_sw))
         t0 = time.time()
         x_sw, _ = sw(data_b, vo)
         jax.block_until_ready(x_sw)

@@ -17,7 +17,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 YAMLS = {
-    "go1": "/root/reference/src/go1_example/config/parameters_go1.yaml",
+    "go1": os.path.join(ROOT, "configs", "parameters_go1.yaml"),
     "cassie": os.path.join(ROOT, "configs", "parameters_cassie.yaml"),
     "pogox": os.path.join(ROOT, "configs", "parameters_pogox.yaml"),
 }
@@ -38,10 +38,10 @@ def main(argv=None):
     ap.add_argument("--cpu", action="store_true")
     args = ap.parse_args(argv)
 
-    import jax
+    from decentralized_ekf_mhe_tpu.utils.runtime import init_backend
 
-    if args.cpu:
-        jax.config.update("jax_platforms", "cpu")
+    init_backend(cpu=args.cpu)
+    import jax
     import jax.numpy as jnp
     import numpy as np
 

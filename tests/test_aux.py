@@ -86,7 +86,7 @@ def test_checkpoint_shape_mismatch_raises(tmp_path):
 def test_perturb_noise_matches_configured_stds():
     """Monte-Carlo draws are scaled by the CONFIGURED sensor stds (robot_params
     schema, DecentralEst.hpp:18-63) — the fleet samples the noise model the
-    estimator assumes (VERDICT r04 #7)."""
+    estimator assumes."""
     from decentralized_ekf_mhe_tpu.config import EKFParams
     from decentralized_ekf_mhe_tpu.parallel import batch as batch_lib
 

@@ -141,7 +141,7 @@ def test_converges_to_true_attitude():
 
 
 def test_float32_adequacy():
-    """f32 path (TPU default) stays within 1e-4 quaternion error of f64."""
+    """f32 path (the accelerator default) stays within 1e-4 quaternion error of f64."""
     params = EKFParams()
     T = 500
     gyro, accel, _ = make_imu_log(T, params.dt, seed=5)

@@ -55,7 +55,7 @@ def test_facade_kf_matches_scan():
 
 
 def test_facade_vo_past_ring_length():
-    """Regression (VERDICT r2 weak #2): with a tiny orientation history ring,
+    """Regression: with a tiny orientation history ring,
     VO lookups far past the ring length must still read the correct R_pre —
     tick counters stay absolute and only the bounded R ring is modular."""
     p = _params(0, N=6)
@@ -218,7 +218,7 @@ def test_pipeline_estimator_streamed_matches_offline():
     """PipelineEstimator (EKF IN the loop, block-streamed with donated
     carry) == the offline run_pipeline_lanes replay, exactly, at f64 —
     including delayed-VO EKF replays and MHE VO events across block
-    boundaries (VERDICT r04 #2)."""
+    boundaries."""
     from decentralized_ekf_mhe_tpu.config import EKFParams
     from decentralized_ekf_mhe_tpu.ops.facade import PipelineEstimator
     from decentralized_ekf_mhe_tpu.parallel import batch as batch_lib
@@ -275,6 +275,7 @@ def test_example_run_hil_full_cycle():
     (orientation EKF in the loop, raw IMU rows) and stays in budget."""
     from conftest import run_example
 
-    proc = run_example("run_hil.py", "--ticks", "200", "--block", "20")
+    proc = run_example("run_hil.py", "--ticks", "200", "--block", "20",
+                       "--cpu")
     assert "FULL EKF+MHE cycles" in proc.stderr
     assert "sustained per-tick latency" in proc.stderr

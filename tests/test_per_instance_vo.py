@@ -191,69 +191,3 @@ def test_ekf_per_lane_uniform_matches_shared():
     )
     np.testing.assert_allclose(np.asarray(q_perlane), np.asarray(q_shared),
                                rtol=1e-12, atol=1e-14)
-
-
-def test_megakernel_per_lane_vo_content(tpu_or_interpret=None):
-    """Per-lane VO CONTENT through the mega-kernel (shared camera clock,
-    per-instance dp draws): must equal the scanned lanes path lane-by-lane.
-    Runs the kernel in interpret mode so it exercises on CPU CI too."""
-    from decentralized_ekf_mhe_tpu.config import EstimatorParams
-    from decentralized_ekf_mhe_tpu.ops import mhe
-    from decentralized_ekf_mhe_tpu.pallas import mhe_replay_kernel as mrk
-
-    T, B = 24, 4
-    p = EstimatorParams(num_legs=4, leg_odom_type=0, rate=200, N=6)
-    log = synth.generate(synth.SynthConfig(T=T, seed=13))
-    data = estimator.tickdata_from_log(log, dtype=DT)
-    vo = estimator.vodata_from_log(log, dtype=DT)
-    key = jax.random.PRNGKey(3)
-    data_b = batch_lib.to_time_leading(
-        batch_lib.perturb_log_batch(data, B, key, dtype=DT))
-    data_l = batch_lib.tickdata_to_lanes(data_b)
-    vo_pl = batch_lib.perturb_vo_batch(vo, B, jax.random.PRNGKey(4),
-                                       dtype=DT)
-    assert vo_pl.dp_body.ndim == 3           # per-lane content
-
-    x_scan, _ = estimator.run_mhe_lanes(p, data_l, vo=vo_pl, dtype=DT)
-
-    c = mhe.make_consts(p, DT)
-    x_mk = mrk.replay(c, data_l, vo_pl, dtype=DT, chunk=8, interpret=True)
-    np.testing.assert_allclose(np.asarray(jnp.moveaxis(x_mk, -1, 1)),
-                               np.asarray(x_scan), rtol=1e-7, atol=1e-9)
-    # content genuinely differs across lanes on active events
-    act_idx = np.flatnonzero(np.asarray(vo.active))
-    assert not np.array_equal(np.asarray(vo_pl.dp_body[act_idx[0], :, 0]),
-                              np.asarray(vo_pl.dp_body[act_idx[0], :, 1]))
-
-
-def test_megakernel_per_instance_timing():
-    """Fully per-instance VO TIMING through the mega-kernel (per-lane camera
-    clocks — each lane's active/tick metadata differ): the per-instance
-    kernel variant must equal the per-instance lanes scan path
-    (mhe_lanes.step_per_instance_vo) lane-by-lane at float64 (interpret mode
-    so it runs on CPU CI)."""
-    from decentralized_ekf_mhe_tpu.config import EstimatorParams
-    from decentralized_ekf_mhe_tpu.ops import mhe
-    from decentralized_ekf_mhe_tpu.pallas import mhe_replay_kernel as mrk
-
-    T, B = 26, 4
-    p = EstimatorParams(num_legs=4, leg_odom_type=0, rate=200, N=6)
-    data_b, vo_b = _make_fleet(T, B, seed=17)
-    data_tb = batch_lib.to_time_leading(data_b)
-    data_l = batch_lib.tickdata_to_lanes(data_tb)
-    vo_l = estimator.VOData(
-        active=jnp.swapaxes(vo_b.active, 0, 1),              # (T,B)
-        dp_body=jnp.moveaxis(vo_b.dp_body, 0, -1),           # (T,3,B)
-        tick_pre=jnp.swapaxes(vo_b.tick_pre, 0, 1),
-        tick_now=jnp.swapaxes(vo_b.tick_now, 0, 1),
-    )
-
-    x_scan, _ = estimator.run_mhe_lanes(p, data_l, vo=vo_l, dtype=DT)
-
-    c = mhe.make_consts(p, DT)
-    x_mk = mrk.replay(c, data_l, vo_l, dtype=DT, chunk=7, interpret=True)
-    np.testing.assert_allclose(np.asarray(jnp.moveaxis(x_mk, -1, 1)),
-                               np.asarray(x_scan), rtol=1e-7, atol=1e-9)
-    # timing genuinely differs across lanes
-    assert not np.array_equal(np.asarray(vo_l.active[:, 0]),
-                              np.asarray(vo_l.active[:, 1]))

@@ -119,49 +119,13 @@ def test_pipeline_fleet_runner_f32_sane():
         jax.random.PRNGKey(1), dtype=jnp.float32)
 
     runner = jax.jit(batch_lib.make_pipeline_fleet_runner(
-        p, pe, jnp.float32, use_pallas=False))
+        p, pe, jnp.float32))
     x, v, q = runner(data_b, eb, vo)
     assert x.shape == (T, B, 9) and v.shape == (T, B, 3)
     assert np.isfinite(np.asarray(x)).all()
     err = np.asarray(x)[T // 2:, :, 3:6] - log.gt_v_s[T // 2:, None]
     rmse = float(np.sqrt((err ** 2).mean()))
     assert rmse < 0.15, rmse
-
-
-def test_staged_megakernel_pipeline_matches_interleaved():
-    """make_pipeline_fleet_runner(use_megakernel=True): the staged
-    EKF-scan → Pallas mega-kernel pipeline equals the interleaved scan at
-    float64 (the EKF stage is data-independent of the MHE, so staging is an
-    exact reordering)."""
-    T = 24
-    B = 128  # one lane tile
-    p = EstimatorParams(num_legs=4, leg_odom_type=0, rate=200, N=6)
-    pe = EKFParams()
-    log = synth.generate(synth.SynthConfig(T=T, seed=13))
-    data = estimator.tickdata_from_log(log, dtype=DT)
-    vo = estimator.vodata_from_log(log, dtype=DT)
-    key = jax.random.PRNGKey(0)
-    data_b = batch_lib.to_time_leading(
-        batch_lib.perturb_log_batch(data, B, key, dtype=DT))
-    eb = batch_lib.perturb_ekf_blocks(
-        estimator.ekfblocks_from_log(log, dtype=DT), B,
-        jax.random.PRNGKey(1), dtype=DT)
-
-    interleaved = batch_lib.make_pipeline_fleet_runner(
-        p, pe, DT, use_pallas=False, ekf_ring_len=16)
-    x_i, v_i, q_i = interleaved(data_b, eb, vo)
-
-    staged = batch_lib.make_pipeline_fleet_runner(
-        p, pe, DT, use_pallas=False, ekf_ring_len=16,
-        use_megakernel=True, megakernel_chunk=7, megakernel_interpret=True)
-    x_s, v_s, q_s = staged(data_b, eb, vo)
-
-    np.testing.assert_allclose(np.asarray(q_s), np.asarray(q_i),
-                               rtol=1e-10, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(x_s), np.asarray(x_i),
-                               rtol=1e-8, atol=1e-9)
-    np.testing.assert_allclose(np.asarray(v_s), np.asarray(v_i),
-                               rtol=1e-8, atol=1e-9)
 
 
 def test_example_run_fleet():
@@ -218,47 +182,3 @@ def test_pipeline_per_lane_vo_q_matches_materialized_scan():
     _, q_perlane = estimator.scan_ekf_blocks(st0d, eb_u_pl, c)
     np.testing.assert_allclose(np.asarray(q_perlane), np.asarray(q_shared),
                                rtol=1e-12, atol=1e-14)
-
-
-def test_staged_constrained_megakernel_pipeline_matches_scan():
-    """The CONSTRAINED production pipeline through the kernels (Pallas EKF
-    stage + per-tick in-VMEM box-ADMM mega-kernel, interpret mode) equals
-    the scanned constrained pipeline at f64, with the box binding."""
-    from decentralized_ekf_mhe_tpu.ops import mhe
-
-    T = 20
-    B = 128
-    p = EstimatorParams(num_legs=4, leg_odom_type=0, rate=200, N=6,
-                        foot_swing_std=[1e7] * 3)
-    p.osqp.abs_tol = 1e-8
-    p.osqp.relative_tol = 1e-8
-    pe = EKFParams()
-    log = synth.generate(synth.SynthConfig(T=T, seed=17))
-    data = estimator.tickdata_from_log(log, dtype=DT)
-    vo = estimator.vodata_from_log(log, dtype=DT)
-    key = jax.random.PRNGKey(0)
-    data_b = batch_lib.to_time_leading(
-        batch_lib.perturb_log_batch(data, B, key, p, dtype=DT))
-    eb = batch_lib.perturb_ekf_blocks(
-        estimator.ekfblocks_from_log(log, dtype=DT), B,
-        jax.random.PRNGKey(1), p, dtype=DT)
-    s = p.dim_state
-    vb = 0.08
-    x_lb = np.full(s, -np.inf); x_lb[3:6] = -vb
-    x_ub = np.full(s, np.inf); x_ub[3:6] = vb
-    c = mhe.make_consts(p, DT, x_lb=x_lb, x_ub=x_ub, admm_iters=30)
-
-    scan = batch_lib.make_pipeline_fleet_runner(
-        p, pe, DT, use_pallas=False, ekf_ring_len=16, consts=c)
-    x_i, v_i, _ = scan(data_b, eb, vo)
-
-    staged = batch_lib.make_pipeline_fleet_runner(
-        p, pe, DT, use_pallas=False, ekf_ring_len=16, consts=c,
-        use_megakernel=True, megakernel_chunk=6, megakernel_interpret=True)
-    x_s, v_s, _ = staged(data_b, eb, vo)
-
-    np.testing.assert_allclose(np.asarray(x_s), np.asarray(x_i),
-                               rtol=1e-8, atol=1e-9)
-    vmax = np.abs(np.asarray(x_s[..., 3:6])).max()
-    assert vmax <= vb + 1e-6, "box violated"
-    assert vmax >= vb - 1e-6, "box never active"

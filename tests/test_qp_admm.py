@@ -303,7 +303,7 @@ def test_admm_infeasibility_certificates():
 
 def test_from_osqp_consumes_tolerances_and_time_limit():
     """Every OSQPParams knob a reference YAML sets must be consumed
-    (VERDICT r2: config knobs that lie)."""
+    (config knobs that lie)."""
     p = OSQPParams(rho=0.3, alpha=1.5, sigma=2e-5, adapt_rho=False,
                    polish=True, max_iter=4000, prim_tol=1e-7, dual_tol=1e-8,
                    relative_tol=1e-6, abs_tol=1e-6, time_limit=0.0028)
@@ -323,83 +323,11 @@ def test_from_osqp_consumes_tolerances_and_time_limit():
 import jax  # noqa: E402  (used in test_mhe_state_constraints)
 
 
-def test_pallas_admm_kernel_matches_lanes_solver():
-    """The in-VMEM Pallas ADMM kernel (pallas/admm_kernel.py) reproduces
-    solve_box_tridiag_lanes exactly at float64 (interpret mode): same
-    iterate sequence (adaptive-rho + converged-freeze + polish), same
-    per-instance iteration counts."""
-    import numpy as np
-    from decentralized_ekf_mhe_tpu.ops import admm
-    from decentralized_ekf_mhe_tpu.pallas import admm_kernel as ak
-
-    rng = np.random.default_rng(21)
-    K, s, B = 6, 5, 4
-    D = rng.standard_normal((K, B, s, s))
-    D = D @ np.swapaxes(D, -1, -2) + 5 * np.eye(s)
-    U = 0.1 * rng.standard_normal((K - 1, B, s, s))
-    r = rng.standard_normal((K, B, s))
-    lb = np.full(s, -0.25); lb[0] = -np.inf
-    ub = np.full(s, 0.25); ub[-1] = np.inf
-    st = admm.ADMMSettings(rho=0.5, sigma=1e-6, alpha=1.6, iters=50,
-                           abs_tol=1e-8, rel_tol=1e-8)
-    z0 = 0.1 * rng.standard_normal((K, B, s))
-    y0 = 0.1 * rng.standard_normal((K, B, s))
-    mv = lambda a: jnp.asarray(np.moveaxis(a, 1, -1))
-
-    res_x = admm.solve_box_tridiag_lanes(
-        mv(D), mv(U), mv(r), jnp.asarray(lb), jnp.asarray(ub), st,
-        z0=mv(z0), y0=mv(y0))
-    res_p = ak.solve_box_lanes(mv(D), mv(U), mv(r), lb, ub, st,
-                               z0=mv(z0), y0=mv(y0), interpret=True)
-    np.testing.assert_allclose(np.asarray(res_p.x), np.asarray(res_x.x),
-                               rtol=1e-9, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(res_p.z), np.asarray(res_x.z),
-                               rtol=1e-9, atol=1e-12)
-    np.testing.assert_allclose(np.asarray(res_p.y), np.asarray(res_x.y),
-                               rtol=1e-9, atol=1e-12)
-    np.testing.assert_array_equal(np.asarray(res_p.iters),
-                                  np.asarray(res_x.iters))
-    # bounds genuinely bind AND are respected
-    x = np.asarray(res_p.x)
-    assert (np.abs(x[:, 1:-1, :]) >= 0.25 - 1e-9).any()
-    assert (x[:, 1:-1, :] >= -0.25 - 1e-6).all()
-    assert (x[:, 1:-1, :] <= 0.25 + 1e-6).all()
-
-
-def test_pallas_admm_kernel_warmup_mask():
-    """The kernel's shared warmup-mask handling (dead slots -> identity/zero
-    system) matches the XLA path's."""
-    import numpy as np
-    from decentralized_ekf_mhe_tpu.ops import admm
-    from decentralized_ekf_mhe_tpu.pallas import admm_kernel as ak
-
-    rng = np.random.default_rng(22)
-    K, s, B = 5, 4, 3
-    D = rng.standard_normal((K, B, s, s))
-    D = D @ np.swapaxes(D, -1, -2) + 5 * np.eye(s)
-    U = 0.1 * rng.standard_normal((K - 1, B, s, s))
-    r = rng.standard_normal((K, B, s))
-    valid = jnp.asarray(np.array([False, False, True, True, True]))
-    lb = np.full(s, -0.2)
-    ub = np.full(s, 0.2)
-    st = admm.ADMMSettings(rho=0.5, sigma=1e-6, alpha=1.6, iters=40)
-    mv = lambda a: jnp.asarray(np.moveaxis(a, 1, -1))
-    res_x = admm.solve_box_tridiag_lanes(
-        mv(D), mv(U), mv(r), jnp.asarray(lb), jnp.asarray(ub), st,
-        valid=valid)
-    res_p = ak.solve_box_lanes(mv(D), mv(U), mv(r), lb, ub, st, valid=valid,
-                               interpret=True)
-    np.testing.assert_allclose(np.asarray(res_p.x), np.asarray(res_x.x),
-                               rtol=1e-9, atol=1e-12)
-
-
 def test_per_lane_bounds_match_vmapped_shared():
-    """(s,B) PER-LANE bounds: lane b of the fleet solve equals a separate
-    shared-bounds solve with that lane's box, on both the XLA lanes solver
-    and the Pallas kernel (VERDICT r04 #5)."""
+    """(s,B) PER-LANE bounds: lane b of the lanes ADMM fleet solve equals a
+    separate shared-bounds solve with that lane's box."""
     import numpy as np
     from decentralized_ekf_mhe_tpu.ops import admm
-    from decentralized_ekf_mhe_tpu.pallas import admm_kernel as ak
 
     rng = np.random.default_rng(23)
     K, s, B = 6, 5, 4
@@ -419,11 +347,6 @@ def test_per_lane_bounds_match_vmapped_shared():
 
     res_fleet = admm.solve_box_tridiag_lanes(
         mv(D), mv(U), mv(r), jnp.asarray(lb_B), jnp.asarray(ub_B), st)
-    res_pal = ak.solve_box_lanes(mv(D), mv(U), mv(r), lb_B, ub_B, st,
-                                 interpret=True)
-    np.testing.assert_allclose(np.asarray(res_pal.x),
-                               np.asarray(res_fleet.x),
-                               rtol=1e-9, atol=1e-12)
     # oracle: each lane solved alone with its shared (s,) box
     for b in range(B):
         one = lambda a: jnp.asarray(np.moveaxis(a[:, b:b + 1], 1, -1))

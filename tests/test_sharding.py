@@ -39,11 +39,10 @@ def test_sharded_fleet_matches_single_device(setup):
     gt_v = jnp.asarray(log.gt_v_s, jnp.float32)
 
     x_ref, _ = jax.jit(batch_lib.make_fused_batched_runner(
-        p, jnp.float32, use_pallas=False))(db, vo)
+        p, jnp.float32))(db, vo)
 
     mesh = mesh_lib.make_mesh()
-    runner = batch_lib.sharded_fleet_runner(p, mesh, jnp.float32,
-                                            use_pallas=False)
+    runner = batch_lib.sharded_fleet_runner(p, mesh, jnp.float32)
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     db_sharded = jax.device_put(
@@ -103,11 +102,11 @@ def test_sharded_pipeline_per_lane_vo_q(setup):
     gt_v = jnp.asarray(log.gt_v_s, jnp.float32)
 
     x_ref, _, _ = jax.jit(batch_lib.make_pipeline_fleet_runner(
-        p, ekf_p, jnp.float32, use_pallas=False))(db, eb, vo)
+        p, ekf_p, jnp.float32))(db, eb, vo)
 
     mesh = mesh_lib.make_mesh()
     runner = batch_lib.sharded_pipeline_runner(
-        p, ekf_p, mesh, jnp.float32, use_pallas=False, ekf_ring_len=16,
+        p, ekf_p, mesh, jnp.float32, ekf_ring_len=16,
         per_lane_vo_q=True)
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -123,7 +122,7 @@ def test_sharded_pipeline_per_lane_vo_q(setup):
 
 def test_sharded_constrained_fleet_matches_single_device(setup):
     """8-way sharded CONSTRAINED fleet (box-ADMM window solves, warm-start
-    carry) == the unsharded constrained run (VERDICT r04 #10)."""
+    carry) == the unsharded constrained run."""
     from decentralized_ekf_mhe_tpu.ops import mhe
 
     p, log, data, vo = setup
@@ -137,15 +136,14 @@ def test_sharded_constrained_fleet_matches_single_device(setup):
     c = mhe.make_consts(p, jnp.float32, x_lb=x_lb, x_ub=x_ub, admm_iters=15)
 
     x_ref, _ = jax.jit(batch_lib.make_fused_batched_runner(
-        p, jnp.float32, use_pallas=False))(db, vo)
+        p, jnp.float32))(db, vo)
     # unsharded constrained oracle (standard layout, same consts)
     from decentralized_ekf_mhe_tpu.ops import estimator as est_mod
     x_con_ref, _ = jax.jit(lambda d, v: est_mod.run_mhe(
         p, d, vo=v, dtype=jnp.float32, consts=c))(db, vo)
 
     mesh = mesh_lib.make_mesh()
-    runner = batch_lib.sharded_fleet_runner(p, mesh, jnp.float32,
-                                            use_pallas=False, consts=c)
+    runner = batch_lib.sharded_fleet_runner(p, mesh, jnp.float32, consts=c)
     from jax.sharding import NamedSharding, PartitionSpec as P
 
     db_sh = jax.device_put(db, NamedSharding(mesh, P(None, ("data", "model"))))
@@ -178,11 +176,11 @@ def test_sharded_pipeline_per_instance_vo(setup):
     gt_v = jnp.asarray(log.gt_v_s, jnp.float32)
 
     x_ref, _, _ = jax.jit(batch_lib.make_pipeline_fleet_runner(
-        p, ekf_p, jnp.float32, use_pallas=False))(db, eb, vo_pi)
+        p, ekf_p, jnp.float32))(db, eb, vo_pi)
 
     mesh = mesh_lib.make_mesh()
     runner = batch_lib.sharded_pipeline_runner(
-        p, ekf_p, mesh, jnp.float32, use_pallas=False, ekf_ring_len=16,
+        p, ekf_p, mesh, jnp.float32, ekf_ring_len=16,
         per_instance_vo=True)
     from jax.sharding import NamedSharding, PartitionSpec as P
 

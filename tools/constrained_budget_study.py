@@ -1,15 +1,12 @@
 """Constrained-MHE solver-budget study: iteration budget / rho vs a
-converged oracle, at float64 on CPU (reproduces the numbers cited in
-bench.py's constrained mega-kernel section).
+converged oracle, at float64 on CPU.
 
 The reference's production cycle caps OSQP by wall clock
 (timeLimit 2.8 ms, parameters_go1.yaml:50); our analog is a fixed
 iteration budget. This script quantifies what a given (rho, iters,
 adaptive, polish) budget costs in ESTIMATE quality relative to a
 400-iteration converged solve, with everything at f64 so solver-budget
-error is isolated from f32 rounding (measured separately: the f32 TPU
-trajectory matches the SAME-SETTINGS f64 one to ~1e-4 — precision is not
-the limiter).
+error is isolated from f32 rounding.
 
 Run:  python tools/constrained_budget_study.py [--T 400]
 
@@ -18,9 +15,8 @@ Representative output (T=200, Go1 synth log, |v|<=0.3 box, 2026-08-21):
   adapt   rho0=0.1 it=50  polish       : dev 1.1e-2  rmse_delta 3.7e-04
   fixed   rho=5000 it=20  polish       : dev 6.7e-2  rmse_delta 4.9e-03
   fixed   rho=5000 it=60  polish       : dev 4.4e-2  rmse_delta 2.9e-03
-The benched fleet uses fixed rho=5000/it=20/polish (1.27M solves/s on v5e);
-the adaptive 50-iteration budget is ~3x slower but ~10x closer to the
-converged solution — both respect the box exactly (polish pins the active
+The adaptive 50-iteration budget is ~10x closer to the converged solution
+than fixed rho=5000/it=20; both respect the box (polish pins the active
 set). Pick per deployment accuracy needs.
 """
 
@@ -41,7 +37,9 @@ def main(argv=None):
 
     import jax
 
-    jax.config.update("jax_platforms", "cpu")
+    from decentralized_ekf_mhe_tpu.utils.runtime import init_backend
+
+    init_backend(cpu=True)
     jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
     import numpy as np

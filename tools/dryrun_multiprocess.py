@@ -13,8 +13,8 @@ psum-reduced fleet statistics match a single-process oracle computed
 independently in each worker.
 
 This is the genuine multi-process collective path (cross-process gloo/XLA
-CPU collectives standing in for DCN); on a real multi-host pod the same
-program runs unchanged with the TPU backend.
+CPU collectives standing in for the network between hosts); the runner under
+test is the one multi-host deployments call.
 
 Run:  python tools/dryrun_multiprocess.py [--procs 2] [--devs-per-proc 2]
 """
@@ -82,15 +82,14 @@ def worker(pid: int, nprocs: int, devs: int, port: int) -> int:
             NamedSharding(mesh, P(None, ("data", "model"))), np.asarray(local))
 
     data_g = jax.tree.map(to_global, data_b)
-    runner = batch_lib.sharded_fleet_runner(params, mesh, dtype,
-                                            use_pallas=False)
+    runner = batch_lib.sharded_fleet_runner(params, mesh, dtype)
     x, rmse, fleet_mean, fleet_max = runner(data_g, vo, gt_v)
     jax.block_until_ready((fleet_mean, fleet_max))
     fm, fx = float(fleet_mean), float(fleet_max)
 
     # single-process oracle, computed independently in this worker
     x_ref, _ = jax.jit(batch_lib.make_fused_batched_runner(
-        params, dtype, use_pallas=False))(data_b, vo)
+        params, dtype))(data_b, vo)
     err = np.asarray(x_ref[..., 3:6], np.float64) - np.asarray(
         gt_v, np.float64)[:, None, :]
     skip = min(50, err.shape[0] // 2)
